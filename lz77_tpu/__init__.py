@@ -1,10 +1,10 @@
-"""lz77_tpu — a TPU-native LZ77 codec framework.
+"""lz77_tpu — an LZ77 codec framework on JAX devices.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the C
-reference codec (cstdvd/lz77): same stream format, CLI surface, and decode
-semantics, but block-parallel and mesh-shardable instead of byte-serial.
+A from-scratch JAX/XLA re-design of the capabilities of the C reference
+codec (cstdvd/lz77): same stream format, CLI surface, and decode semantics,
+but block-parallel and mesh-shardable instead of byte-serial.
 
-Layering (mirrors SURVEY.md §1's layer map, re-drawn TPU-first):
+Layering (mirrors SURVEY.md §1's layer map, re-drawn device-first):
 
 * ``spec`` / ``bitio``      — format contract + host bitstream codec
 * ``ops``                   — device kernels: match, parse, pack, decode

@@ -121,21 +121,19 @@ def synth_dna(n: int, seed: int = 5) -> bytes:
     """4-symbol genome-like data with repeats (Canterbury 'E.coli' class)."""
     rng = np.random.default_rng(seed)
     base = rng.choice(np.frombuffer(b"acgt", np.uint8), size=max(n // 4, 256))
-    out = []
-    total = 0
-    while total < n:
+    out = bytearray()
+    while len(out) < n:
         # repeat a random earlier segment (genomes are repeat-rich)
-        if total and rng.random() < 0.5:
+        if out and rng.random() < 0.5:
             ln = int(rng.integers(20, 400))
-            st = int(rng.integers(0, max(1, total - ln)))
-            seg = b"".join(out)[st : st + ln]
+            st = int(rng.integers(0, max(1, len(out) - ln)))
+            seg = out[st : st + ln]
         else:
             ln = int(rng.integers(50, 500))
             st = int(rng.integers(0, max(1, base.shape[0] - ln)))
             seg = base[st : st + ln].tobytes()
-        out.append(seg)
-        total += len(seg)
-    return b"".join(out)[:n]
+        out += seg
+    return bytes(out[:n])
 
 
 def synth_binary(n: int, seed: int = 6) -> bytes:
@@ -169,6 +167,16 @@ SYNTH_CLASSES = {
     "dna": synth_dna,
     "binary": synth_binary,
 }
+
+
+def silesia_mix(n: int, seed: int = 0) -> bytes:
+    """``n`` bytes: the six synthetic classes in equal consecutive shares,
+    each class drawn from its own seed (``seed + 1`` .. ``seed + 6``)."""
+    gens = list(SYNTH_CLASSES.values())
+    share = -(-n // len(gens))
+    return b"".join(
+        g(share, seed=seed + i + 1) for i, g in enumerate(gens)
+    )[:n]
 
 
 def _system_files(scale: int) -> dict[str, bytes]:

@@ -35,10 +35,10 @@ def match_blocks(
     *,
     la: int,
     sb: int,
-    matcher: str = "sorted",
+    matcher: str | None = None,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """(G, B) blocks -> (G, B) match tables (L, O)."""
-    find = match_ops.get_matcher(matcher)
+    find = match_ops.get_matcher(matcher, la)
     fn = functools.partial(find, la=la, sb=sb)
     return jax.vmap(fn)(blocks, halos, rights, avails, valid_exts)
 
@@ -53,7 +53,7 @@ def match_blocks_compact(
     *,
     la: int,
     sb: int,
-    matcher: str = "chunked",
+    matcher: str | None = None,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Match phase with transfer-minimal outputs.
 
@@ -63,9 +63,9 @@ def match_blocks_compact(
     the exact global parse; O16 is the uint16 offset table meant to *stay on
     device* until :func:`gather_offsets` picks out the few entries at token
     starts.  Host<->device traffic is the scarce resource (SURVEY.md §3.4's
-    process/device boundary, which on TPU becomes the PCIe/tunnel hop).
+    process/device boundary, which on an accelerator is the PCIe hop).
     """
-    find = match_ops.get_matcher(matcher)
+    find = match_ops.get_matcher(matcher, la)
     fn = functools.partial(find, la=la, sb=sb)
     L, O = jax.vmap(fn)(blocks, halos, rights, avails, valid_exts)
     Lb = L.astype(jnp.uint8)
@@ -104,11 +104,11 @@ def encode_block(
     *,
     la: int,
     sb: int,
-    matcher: str = "sorted",
+    matcher: str | None = None,
 ):
     """One block -> (off, len, next, count, exit_pos), padded to block size."""
     B = block.shape[0]
-    find = match_ops.get_matcher(matcher)
+    find = match_ops.get_matcher(matcher, la)
     L, O = find(block, halo, right, avail, valid_ext, la=la, sb=sb)
     vl = jnp.minimum(valid_ext, B)
     starts, count, exit_pos = parse_ops.greedy_parse(L, vl, entry, la=la)

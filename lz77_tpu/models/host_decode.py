@@ -2,12 +2,11 @@
 
 Same parallel algorithm as ``ops.decode`` (positions via cumsum, copy chains
 collapsed by pointer doubling) but executed with numpy on the host: decode
-is pure pointer-chasing with zero arithmetic intensity, which is
-memory-latency-bound work that a TPU's vector units cannot accelerate —
-1-D dynamic gathers lower to slow serial paths on TPU, while the host CPU
-does them at cache speed.  The device implementation (``ops.decode``)
-remains the path of choice when tokens are already device-resident (e.g.
-inside a fused verify step); this is the default file-decode backend.
+is pure pointer-chasing with zero arithmetic intensity, and for a stream
+that is already in host memory the host does it without a device round
+trip.  It is the fallback file-decode backend when the native library is
+not built; the device implementation (``ops.decode``) serves
+``backend='device'``.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 The distance sweep is the codec's only heavy compute: O(B * d_limit)
 candidate comparisons per block (the reference amortises it with a BST walk,
 tree.c:118-152; our exact matchers sweep it).  The int-domain sweeps
-(`ops.match`, `ops.pallas_match`) spend one 32-bit VPU lane per *position* on
-what are 1-bit quantities (byte equality, run masks).  This matcher packs
+(`ops.match`) spend one 32-bit lane per *position* on what are 1-bit
+quantities (byte equality, run masks).  This matcher packs
 32 positions into each int32 lane, cutting the per-(position, distance) op
 count ~6x:
 
@@ -34,7 +34,7 @@ count ~6x:
 
 Outputs are bit-exact with ``ops.match.find_matches_brute`` (tested).
 Everything is jnp + lax elementwise int32 on whole planes; XLA fuses each
-distance window into a handful of VPU loops.
+distance window into a handful of elementwise loops.
 """
 
 from __future__ import annotations

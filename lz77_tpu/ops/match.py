@@ -193,10 +193,10 @@ def find_matches_chunked(
     sb: int,
     chunk: int = 128,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """True longest match per position, distance-chunked for the VPU.
+    """True longest match per position, distance-chunked.
 
-    Same contract as :func:`find_matches_brute`, reorganized for TPU
-    efficiency: distances are processed in chunks of 128.  Per chunk, ONE
+    Same contract as :func:`find_matches_brute`, reorganized into large
+    regular tensors: distances are processed in chunks of 128.  Per chunk, ONE
     unaligned dynamic slice of the byte buffer yields a vector from which
     all 128 shifted candidate rows are *statically* sliced — so the hot loop
     is 32 iterations of large regular (128, B) elementwise tensors instead
@@ -345,6 +345,20 @@ def _find_matches_bitplane(*args, **kw):
     return bitplane.find_matches_bitplane(*args, **kw)
 
 
+def default_matcher(la: int) -> str:
+    """The matcher the pipelines use unless the caller names one.
+
+    All matchers are exact, so the choice changes speed only, never the
+    stream.  On an H100 at the default block shape (8 blocks of 64 KiB,
+    la=15, sb=4095) one batch takes 6.8 ms with ``sorted``, 21 ms with
+    ``chunked`` and 32 ms with ``bitplane``.  Sorting costs one sort per
+    lookahead step, with ceil(k/4) key words at step k, so deep lookaheads
+    take the distance-chunked sweep: at la=255 the sorted and bit-plane
+    programs take many minutes to compile, the chunked one seconds.
+    """
+    return "sorted" if la <= 16 else "chunked"
+
+
 MATCHERS = {
     "brute": find_matches_brute,
     "sorted": find_matches_sorted,
@@ -353,38 +367,13 @@ MATCHERS = {
 }
 
 
-def route_matcher(name: str, la: int) -> str:
-    """Capability routing for matcher names.
-
-    Round 3 removed the bit-plane family's ``la <= 33`` cap: the XLA
-    bit-plane formulation is exact for any ``la`` the reference CLI accepts
-    (``-l`` up to 255, main.c:35) whenever the block is large enough
-    (``nw > depth`` — guaranteed by default block sizing), and it measures
-    1.48x the chunked matcher at la=64 on a v5e (docs/PARITY.md).  The
-    Pallas bit-plane wrapper self-routes to the XLA formulation when its
-    sweep state would exceed VMEM (``pallas_bitplane.py``), so no name
-    rewriting is needed any more; this hook remains for future capability
-    splits."""
-    return name
-
-
-def get_matcher(name: str):
-    if name == "pallas":
-        from . import pallas_match  # deferred: pulls in pallas machinery
-
-        return pallas_match.find_matches_pallas
-    if name == "bitplane":
-        from . import bitplane
-
-        return bitplane.find_matches_bitplane
-    if name == "pallas_bitplane":
-        from . import pallas_bitplane
-
-        return pallas_bitplane.find_matches_bitplane_pallas
+def get_matcher(name: str | None, la: int = 0):
+    """The matcher called ``name``; ``None`` picks ``default_matcher(la)``."""
+    if name is None:
+        name = default_matcher(la)
     try:
         return MATCHERS[name]
     except KeyError:
         raise ValueError(
-            f"unknown matcher {name!r}; available: "
-            f"{sorted(MATCHERS) + ['pallas', 'pallas_bitplane']}"
+            f"unknown matcher {name!r}; available: {sorted(MATCHERS)}"
         ) from None

@@ -1,7 +1,7 @@
 """Multi-host orchestration (SURVEY.md §7 phase 3).
 
 The reference is a single process with stdio as its only transport
-(SURVEY.md §2.2); the TPU build's multi-host story:
+(SURVEY.md §2.2); the device build's multi-host story:
 
 * ``jax.distributed.initialize`` for process-group setup (DCN/Gloo);
 * contiguous block-range partitioning per host — blocks need only raw input
@@ -400,7 +400,7 @@ def encode_bytes_multihost(
     *,
     block_size: int = codec_model.DEFAULT_BLOCK_SIZE,
     batch_blocks: int = codec_model.DEFAULT_BATCH_BLOCKS,
-    matcher: str = "chunked",
+    matcher: str | None = None,
     retries: int = 2,
     fault_injector=None,
     work_seconds: list | None = None,
@@ -419,9 +419,6 @@ def encode_bytes_multihost(
     payload bytes between hosts (each host pwrites its own segment).
     """
     params = params or spec.Params()
-    from ..ops import match as match_ops
-
-    matcher = match_ops.route_matcher(matcher, params.la)
     nproc = jax.process_count()
     if nproc == 1 and not force:
         # Solo fast path (``force=True`` keeps the distributed pipeline for
@@ -481,7 +478,7 @@ def encode_file_multihost(
     *,
     block_size: int = codec_model.DEFAULT_BLOCK_SIZE,
     batch_blocks: int = codec_model.DEFAULT_BATCH_BLOCKS,
-    matcher: str = "chunked",
+    matcher: str | None = None,
     retries: int = 2,
     pipeline: str = "auto",
 ) -> None:
@@ -500,9 +497,6 @@ def encode_file_multihost(
     from jax.experimental import multihost_utils
 
     params = params or spec.Params()
-    from ..ops import match as match_ops
-
-    matcher = match_ops.route_matcher(matcher, params.la)
     nproc = jax.process_count()
     pid = jax.process_index()
     n = os.path.getsize(in_path)

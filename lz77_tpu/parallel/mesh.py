@@ -8,7 +8,7 @@ The workload's parallel axes (SURVEY.md §2.2):
 * ``win``    — the search-window/distance axis inside a block (the SP/CP
   analog: the (position x distance) match table is the attention-like
   quadratic structure; sharding distances splits it column-wise and
-  recombines with a max-reduce collective over ICI).
+  recombines with a max-reduce collective).
 """
 
 from __future__ import annotations

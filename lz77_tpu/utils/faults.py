@@ -1,7 +1,7 @@
 """Failure handling: per-batch retry + fault injection (SURVEY.md §5).
 
 The reference silently truncates on mid-stream I/O errors (lz77.c:79-82,
-124-127; bitio.c:87-88).  The TPU build's blocks are independent up to a
+124-127; bitio.c:87-88).  The device build's blocks are independent up to a
 scalar entry carry, so a failed device batch is simply retried; a fault
 injector lets tests exercise the retry path deterministically.
 """

@@ -1,7 +1,7 @@
 """Block manifest: checkpoint/resume sidecar (SURVEY.md §5).
 
 The reference stream is not restartable — no block index, no length fields
-(SURVEY.md §2.3.6).  The TPU build's block decomposition makes every block
+(SURVEY.md §2.3.6).  The device build's block decomposition makes every block
 boundary a natural checkpoint: this sidecar records, per block, the token
 count, the payload bit offset, and the parse entry offsets, kept strictly
 *out of band* so the stream stays bit-compatible.

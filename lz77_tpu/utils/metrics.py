@@ -31,7 +31,6 @@ class PhaseTimes:
     parse: float = 0.0
     pack: float = 0.0
     io: float = 0.0
-    resync: float = 0.0  # sharded pipeline: host resync-splice stage
     total: float = 0.0
 
     def as_dict(self) -> dict:

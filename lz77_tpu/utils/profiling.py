@@ -1,5 +1,5 @@
 """Profiling hooks (jax.profiler) — SURVEY.md §5 'tracing/profiling: none'
-in the reference; the TPU build exposes real traces.
+in the reference; the device build exposes real traces.
 """
 
 from __future__ import annotations

@@ -91,7 +91,7 @@ def test_report_flag(tmp_path, capsys, rng):
 
 def test_decode_backend_flag(tmp_path, capsys, rng):
     """--decode-backend selects the decoder; the backend actually used is
-    recorded in --report (device falls back loudly on CPU hosts)."""
+    recorded in --report."""
     import json
 
     data = CORPUS_SMALL["text"](rng)[:2000]
@@ -101,7 +101,7 @@ def test_decode_backend_flag(tmp_path, capsys, rng):
     for be, expect in (
         ("native", {"native", "native-streamed"}),
         ("host", {"host"}),
-        ("device", {"device-walk", "device-chunked", "device-walk-streamed"}),
+        ("device", {"device-xla-streamed"}),
     ):
         out = tmp_path / f"out.{be}"
         assert run_cli(["-d", "-i", str(comp), "-o", str(out),
@@ -139,16 +139,15 @@ def test_dump_tool(tmp_path):
 
 
 def test_cli_large_la_with_bitplane_matcher(tmp_path, capsys):
-    """-l 64 --matcher pallas_bitplane runs the bit-plane family (r3: the
-    la<=33 cap removed — the wrapper self-routes to the XLA bit-plane when
-    the Pallas sweep state would exceed VMEM)."""
+    """-l 64 --matcher bitplane runs the bit-plane matcher past the old
+    la <= 33 cap."""
     inp = tmp_path / "in"
     out = tmp_path / "out"
     dec = tmp_path / "dec"
     data = b"abcabcabcabc" * 300
     inp.write_bytes(data)
     rc = cli.main(["-c", "-i", str(inp), "-o", str(out), "-l", "64",
-                   "--matcher", "pallas_bitplane", "--block-size", "8192"])
+                   "--matcher", "bitplane", "--block-size", "8192"])
     capsys.readouterr()
     assert rc == 0
     rc = cli.main(["-d", "-i", str(out), "-o", str(dec)])
@@ -206,9 +205,9 @@ def test_cli_sharded_bad_mesh(tmp_path, capsys):
 
 
 def test_cli_host_devices_subprocess(tmp_path, rng):
-    """--host-devices N makes the multi-chip sharded pipeline drivable where
-    a platform plugin pins the backend (VERDICT r3 weak #6): run the real
-    CLI in a subprocess WITHOUT this suite's cpu/8-device env overrides."""
+    """--host-devices N runs the multi-device sharded pipeline on virtual
+    CPU devices: the real CLI in a subprocess WITHOUT this suite's
+    cpu/8-device env overrides."""
     import subprocess
     import sys
 
@@ -224,7 +223,7 @@ def test_cli_host_devices_subprocess(tmp_path, rng):
          "--batch-blocks", "8", "--matcher", "bitplane"],
         capture_output=True, text=True, timeout=300,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        env=env,
+        env=dict(env, JAX_ENABLE_COMPILATION_CACHE="false"),
     )
     assert res.returncode == 0, res.stderr[-2000:]
     from lz77_tpu import native
@@ -249,3 +248,35 @@ def test_cli_edge_inputs_streamed_route(tmp_path):
         assert run_cli(["-d", "-i", str(op), "-o", str(dp)]) == 0
         assert dp.read_bytes() == data
     assert (tmp_path / "out0.lz").stat().st_size == 4
+
+
+def test_platform_flag_choices():
+    """--platform takes cpu or gpu and refuses any other platform."""
+    parser = cli.build_parser()
+    for plat in ("cpu", "gpu"):
+        assert parser.parse_args(
+            ["-c", "-i", "x", "-o", "y", "--platform", plat]
+        ).platform == plat
+    with pytest.raises(SystemExit):
+        parser.parse_args(["-c", "-i", "x", "-o", "y", "--platform", "tpu"])
+
+
+def test_report_names_the_device(tmp_path, capsys):
+    """--report carries platform and device_kind from jax.devices()[0], on
+    encode and on device decode, so a CPU run cannot pass for a card run."""
+    import json
+
+    inp, comp, out = tmp_path / "in", tmp_path / "comp", tmp_path / "out"
+    inp.write_bytes(b"report me " * 300)
+    capsys.readouterr()
+    assert run_cli(["-c", "-i", str(inp), "-o", str(comp), "--pipeline",
+                    "fused", "--block-size", "2048", "--report"]) == 0
+    assert run_cli(["-d", "-i", str(comp), "-o", str(out),
+                    "--decode-backend", "device", "--report"]) == 0
+    assert out.read_bytes() == inp.read_bytes()
+    lines = capsys.readouterr().err.strip().splitlines()
+    for line in (lines[0], lines[-1]):
+        rep = json.loads(line)
+        assert rep["platform"] == "cpu"
+        assert rep["device_kind"]
+        assert rep["device_count"] == 8

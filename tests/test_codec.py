@@ -87,7 +87,7 @@ def test_large_la_bitplane_native(rng):
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         stream = codec.encode_bytes(
-            data, params, block_size=2048, matcher="pallas_bitplane"
+            data, params, block_size=2048, matcher="bitplane"
         )
     assert not any("auto-routing" in str(x.message) for x in w)
     ref = codec.encode_bytes(data, params, block_size=2048, matcher="chunked")

@@ -1,10 +1,10 @@
-"""Streamed device decode (codec.decode_file_device) — VERDICT r4 next #6.
+"""Streamed device decode (codec.decode_file_device).
 
-The device walk kernel's ring state is carried across invocations by
-priming each stage's ring tail with the last d_limit decoded bytes, so a
->RAM stream decodes through the device at bounded host memory.  These
-tests pin chunk-equality with the native streamed decoder across widths
-(byte-aligned and not), stage geometries, and corrupt-stream rejection.
+The stream is read in token chunks and replayed through the XLA decoder
+with the window tail carried on the device between chunks, so a stream of
+any size decodes through the device at bounded host memory.  These tests
+pin equality with the input across widths (byte-aligned and not), chunk
+geometries, and corrupt-stream rejection.
 """
 
 import numpy as np
@@ -22,10 +22,8 @@ def _roundtrip(tmp_path, data, params, **kw):
     sp.write_bytes(stream)
     op = tmp_path / "s.out"
     st = codec.DecodeStats()
-    tot = codec.decode_file_device(
-        str(sp), str(op), stats=st, interpret=True, **kw
-    )
-    assert st.backend == "device-walk-streamed"
+    tot = codec.decode_file_device(str(sp), str(op), stats=st, **kw)
+    assert st.backend == "device-xla-streamed"
     assert tot == len(data)
     assert op.read_bytes() == data
 
@@ -41,20 +39,15 @@ def test_device_stream_roundtrip(tmp_path, rng, la, sb):
         + b"\x00" * 30_000
         + np.asarray(rng.integers(0, 256, 20_000, dtype=np.uint8)).tobytes()
     )
-    _roundtrip(
-        tmp_path, data, p, tokens_per_stage=4096, out_cap_words=1 << 16
-    )
+    _roundtrip(tmp_path, data, p, chunk_tokens=4096, read_tokens=8192)
 
 
 def test_device_stream_tiny_stages(tmp_path, rng):
-    """Aggressively small stages: many ring-priming handoffs, and the
-    output-budget limiter splitting a file chunk into several stages."""
+    """Small chunks and reads: many device-tail handoffs, and file reads
+    that split a chunk's worth of tokens."""
     p = spec.Params(la=15, sb=255)
     data = b"ab" * 3_000 + make_text(rng, 20_000) + b"\x00" * 9_000
-    _roundtrip(
-        tmp_path, data, p,
-        tokens_per_stage=1024, out_cap_words=4096, read_tokens=2048,
-    )
+    _roundtrip(tmp_path, data, p, chunk_tokens=1024, read_tokens=1528)
 
 
 def test_device_stream_edge_inputs(tmp_path):
@@ -72,13 +65,11 @@ def test_device_stream_rejects_corrupt(tmp_path):
     sp = tmp_path / "c.lz"
     sp.write_bytes(stream)
     with pytest.raises(ValueError, match="corrupt"):
-        codec.decode_file_device(str(sp), str(tmp_path / "o"),
-                                 interpret=True)
+        codec.decode_file_device(str(sp), str(tmp_path / "o"))
     # truncated header
     sp.write_bytes(b"\xff\x0f")
     with pytest.raises(ValueError, match="header|corrupt"):
-        codec.decode_file_device(str(sp), str(tmp_path / "o"),
-                                 interpret=True)
+        codec.decode_file_device(str(sp), str(tmp_path / "o"))
 
 
 def test_decode_file_routes_device_stream(tmp_path, rng):
@@ -90,5 +81,5 @@ def test_decode_file_routes_device_stream(tmp_path, rng):
     n = codec.decode_file(str(sp), str(tmp_path / "r.out"),
                           backend="device", stats=st)
     assert n == len(data)
-    assert st.backend == "device-walk-streamed"
+    assert st.backend == "device-xla-streamed"
     assert (tmp_path / "r.out").read_bytes() == data

@@ -84,19 +84,18 @@ def test_sharded_file_manifest_resume_and_counters(
         codec.encode_file(
             str(ip), str(op), spec.Params(), pipeline="sharded",
             block_size=16384, batch_blocks=8, manifest_path=str(mp),
-            mesh=mesh, interpret=True, matcher="bitplane",
-            fault_injector=inj, stats=st,
+            mesh=mesh, matcher="bitplane", fault_injector=inj, stats=st,
         )
     codec.encode_file(
         str(ip), str(op), spec.Params(), pipeline="sharded",
         block_size=16384, batch_blocks=8, manifest_path=str(mp),
-        mesh=mesh, interpret=True, matcher="bitplane", resume=True,
-        stats=st,
+        mesh=mesh, matcher="bitplane", resume=True, stats=st,
     )
     assert op.read_bytes() == ref_stream
-    # resync observability (VERDICT r3 weak #3): counters recorded
-    assert st.shards > 0
-    assert st.resyncs > 0  # text at this geometry crosses shard entries
+    # transfer counters: the resumed run staged the remaining batches and
+    # fetched payload bytes plus scalars, nothing like a match table
+    assert st.h2d_bytes > 0
+    assert 0 < st.d2h_bytes < 2 * len(ref_stream)
 
 
 def test_non_byte_aligned_width_rejected(tmp_path, payload):
@@ -195,13 +194,18 @@ def test_host_path_deleted_scratch_restarts(tmp_path, payload):
 
 
 def test_sharded_file_deep_la_rejected_with_remedy(tmp_path, payload):
-    """pipeline='sharded' + la>128 names fused/host instead of the walk
-    parser's internal assertion (API consistency with encode_bytes_sharded's
-    transparent fallback)."""
+    """pipeline='sharded' accepts the reference's deepest lookahead (la=255,
+    24-bit tokens at sb=255) and its stream is identical to the serial
+    host parse."""
+    data = payload[:20_000] + payload[-5_000:]
+    p = spec.Params(la=255, sb=255)
     ip = tmp_path / "in"
-    ip.write_bytes(payload[:1000])
-    with pytest.raises(ValueError, match="fused"):
-        codec.encode_file(
-            str(ip), str(tmp_path / "o"), spec.Params(la=200, sb=65535),
-            pipeline="sharded",
-        )
+    ip.write_bytes(data)
+    op = tmp_path / "o"
+    codec.encode_file(
+        str(ip), str(op), p, pipeline="sharded", block_size=2048,
+        batch_blocks=4, mesh=mesh_lib.make_mesh(n_data=4, n_win=1),
+    )
+    assert op.read_bytes() == codec.encode_bytes(
+        data, p, block_size=2048, batch_blocks=4
+    )

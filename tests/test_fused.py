@@ -96,49 +96,9 @@ def test_fused_stats(rng):
     assert st.phases.total > 0
 
 
-def test_walk_parser_matches_scan(rng):
-    """The scalar-core walk kernel (interpret mode on CPU) must produce the
-    exact token stream of the XLA scan formulation."""
-    import jax.numpy as jnp
-
-    from lz77_tpu.models import codec as codec_model
-
-    data = make_text(rng, 40000) + b"\x00" * 5000
-    params = spec.Params()
-    x = np.frombuffer(data, np.uint8)
-    n = x.shape[0]
-    B, G = 8192, 3
-    H, R = params.d_limit, params.len_limit
-    entry_w = jnp.int32(0)
-    entry_s = jnp.int32(0)
-    nblocks = -(-n // B)
-    out_w, out_s = [], []
-    for bi in range(-(-nblocks // G)):
-        g0 = bi * G
-        gn = min(G, nblocks - g0)
-        gb, gh, gr, ga, gv = codec_model._batch_inputs(x, n, g0, gn, G, B, H, R)
-        vt = jnp.int32(min(G * B, n - g0 * B))
-        args = (jnp.asarray(gb), jnp.asarray(gh), jnp.asarray(gr),
-                jnp.asarray(ga), jnp.asarray(gv), vt)
-        pw, _, tw, entry_w = fused.encode_batch_walk(
-            *args, entry_w, la=params.la, sb=params.sb, matcher="chunked",
-            sub_block=1024, interpret=True,
-        )
-        ps, _, ts, entry_s = fused.encode_batch_device(
-            *args, entry_s, la=params.la, sb=params.sb, matcher="chunked",
-            sub_block=1024,
-        )
-        tw, ts = int(tw), int(ts)
-        assert tw == ts
-        out_w.append(np.asarray(pw)[: tw * 3])
-        out_s.append(np.asarray(ps)[: ts * 3])
-        assert int(entry_w) == int(entry_s)
-    assert all(np.array_equal(a, b) for a, b in zip(out_w, out_s))
-
-
 def test_fused_deep_la_scan_parser(rng):
-    """la > 128 (beyond the walk parser's range) routes to the scan parser
-    and stays byte-identical — including the widest 32-bit token layout."""
+    """Deep lookahead (la > 128) stays byte-identical — including the
+    widest 32-bit token layout."""
     data = make_text(rng, 100_000) + b"\x00" * 10_000
     for p in (spec.Params(la=255, sb=255), spec.Params(la=129, sb=65535)):
         ref = codec.encode_bytes(data, p, block_size=16384, batch_blocks=4)
@@ -147,3 +107,41 @@ def test_fused_deep_la_scan_parser(rng):
         )
         assert s == ref
         assert codec.decode_bytes(s) == data
+
+
+@pytest.fixture(scope="module")
+def mixed(rng):
+    return (
+        make_text(rng, 20_000)
+        + b"\x00" * 5_000
+        + np.asarray(rng.integers(0, 256, 3_000, dtype=np.uint8)).tobytes()
+    )
+
+
+@pytest.mark.parametrize("la,sb", [(5, 31), (9, 15)])
+def test_fused_stream_identity_small_windows(mixed, la, sb):
+    """16-bit tokens at tiny windows, 8 KiB blocks, the default matcher."""
+    p = spec.Params(la=la, sb=sb)
+    s = fused.encode_bytes_fused(mixed, p, block_size=8192, batch_blocks=2)
+    assert s == codec.encode_bytes(mixed, p, block_size=8192, batch_blocks=2)
+    assert codec.decode_bytes(s) == mixed
+
+
+def test_fused_ragged_tiny_and_runs(mixed):
+    """Ragged tails, tiny inputs and the runs class."""
+    p = spec.Params(la=5, sb=31)
+    for data in (mixed[:100], mixed[:1], b"", mixed[:9_000],
+                 b"\x00" * 24_000):
+        s = fused.encode_bytes_fused(data, p, block_size=8192,
+                                     batch_blocks=2)
+        assert s == codec.encode_bytes(data, p, block_size=8192,
+                                       batch_blocks=2), len(data)
+
+
+def test_fused_entry_carry_one_block_batches(rng):
+    """One block per batch: the exit overhang must chain as the next batch's
+    entry (runs make every block boundary land mid-token)."""
+    p = spec.Params(la=9, sb=15)
+    data = b"ab" * 2_000 + b"\x00" * 12_000 + make_text(rng, 12_000)
+    s = fused.encode_bytes_fused(data, p, block_size=8192, batch_blocks=1)
+    assert s == codec.encode_bytes(data, p, block_size=8192, batch_blocks=1)

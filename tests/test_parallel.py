@@ -95,7 +95,7 @@ def test_sharded_exact_step_identical_stream(n_data, n_win, rng):
     """Exact entry-carried sharded step == serial host parse, byte for byte.
 
     This is the fully fused device pipeline (match + parse + gather all on
-    device, entry composed over an ICI all_gather) with NO entry=0
+    device, entry composed over an all_gather) with NO entry=0
     compromise — the stream must equal codec.encode_bytes exactly, which
     also preserves the size <= reference guarantee.
     """
@@ -138,17 +138,15 @@ def test_sharded_exact_step_runs_entry_carry(rng):
 
 @pytest.mark.parametrize("n_data,n_win", [(8, 1), (4, 2)])
 def test_sharded_walk_identical_stream(n_data, n_win, rng):
-    """Device-resident sharded walk pipeline == serial host parse.
-
-    Byte-aligned width (la=15, sb=15 -> 16-bit tokens) routes to the
-    scalar-core walk kernel per shard (speculative entry-0 parse + host
-    resync splice).  The stream must equal codec.encode_bytes exactly."""
+    """Byte-aligned width (la=15, sb=15 -> 16-bit tokens): the exact sharded
+    step with tokens packed into payload bytes on the device.  The stream
+    must equal codec.encode_bytes exactly."""
     data = make_text(rng, 40_000)
     p = spec.Params(la=15, sb=15)
     m = mesh_lib.make_mesh(n_data=n_data, n_win=n_win)
     s = sharded.encode_bytes_sharded(
         data, p, mesh=m, block_size=2048, batch_blocks=8,
-        matcher="brute" if n_win > 1 else "sorted", interpret=True,
+        matcher="brute" if n_win > 1 else "sorted",
     )
     ref = codec.encode_bytes(data, p, block_size=2048, batch_blocks=8)
     assert s == ref
@@ -156,80 +154,50 @@ def test_sharded_walk_identical_stream(n_data, n_win, rng):
 
 
 def test_sharded_walk_ragged_multibatch(rng):
-    """Ragged tail + multiple batches through the walk pipeline."""
+    """Ragged tail + multiple batches through the byte-aligned path."""
     p = spec.Params(la=15, sb=15)
     m = mesh_lib.make_mesh(n_data=4, n_win=1)
     data = make_text(rng, 33_123)
     s = sharded.encode_bytes_sharded(
-        data, p, mesh=m, block_size=1024, batch_blocks=8, interpret=True,
+        data, p, mesh=m, block_size=1024, batch_blocks=8,
     )
     assert s == codec.encode_bytes(data, p, block_size=1024, batch_blocks=8)
     assert sharded.encode_bytes_sharded(
-        b"", p, mesh=m, interpret=True
+        b"", p, mesh=m
     ) == codec.encode_bytes(b"", p)
-
-
-def test_sharded_walk_never_resync_rewalk(rng):
-    """Runs-class input: greedy chains from different entries never merge
-    (constant jump length keeps them phase-offset forever), forcing the
-    splice-miss rescue — now an exact DEVICE re-walk from the true entry
-    (VERDICT r4 next #3), not a full match-table fetch + host re-parse."""
-    data = b"\x00" * 20_000 + make_text(rng, 4_000) + b"\x01" * 9_000
-    p = spec.Params(la=15, sb=15)
-    m = mesh_lib.make_mesh(n_data=4, n_win=1)
-    st = codec.EncodeStats()
-    s = sharded.encode_bytes_sharded(
-        data, p, mesh=m, block_size=1024, batch_blocks=8, interpret=True,
-        stats=st,
-    )
-    assert s == codec.encode_bytes(data, p, block_size=1024, batch_blocks=8)
-    assert codec.decode_bytes(s) == data
-    # span (2048) <= RESYNC_WINDOW here, so the direct exact-parse branch
-    # absorbs the never-merge class; the bulk re-walk path is pinned by
-    # test_sharded_walk_zeros_bounded_traffic (span > window).
-    assert st.resyncs >= 1
 
 
 def test_sharded_walk_zeros_bounded_traffic(rng):
     """Zeros-heavy sharded encode: stream identity AND bounded d2h.
 
-    The span (32 KiB) exceeds RESYNC_WINDOW, so a reintroduced full
-    match-table fetch (8 B per span byte per missed shard, ~256 KiB each)
-    would blow the budget; the device re-walk keeps d2h at heads +
-    bucketed token words.  This is the reference's 0.08 MB/s pathology
-    class (tree.c:87-97) where the framework must dominate."""
+    Runs keep every shard boundary mid-token, so each batch's entry comes
+    from the composed maps; the host fetches only the bucketed payload
+    prefix plus two scalars per batch, never match tables.  This is the
+    reference's 0.08 MB/s pathology class (tree.c:87-97)."""
     data = make_text(rng, 5_000) + b"\x00" * 75_000
     p = spec.Params(la=15, sb=15)
     m = mesh_lib.make_mesh(n_data=2, n_win=1)
     st = codec.EncodeStats()
     s = sharded.encode_bytes_sharded(
-        data, p, mesh=m, block_size=32768, batch_blocks=2, interpret=True,
-        stats=st,
+        data, p, mesh=m, block_size=32768, batch_blocks=2, stats=st,
     )
     assert s == codec.encode_bytes(data, p, block_size=32768, batch_blocks=2)
     assert codec.decode_bytes(s) == data
-    assert st.resync_bulk >= 1
-    # heads (W*8 per resynced shard) + bucketed words (spec + rewalk) +
-    # scalars; a full-table fetch would add ~256 KiB per missed shard.
-    assert st.d2h_bytes < 350_000, st.d2h_bytes
+    # two batches: payload buckets (>= 4 KiB each) + 8 B of scalars; a
+    # match-table fetch would add 8 B per input byte.
+    assert 0 < st.d2h_bytes < 2 * len(s) + 2 * 4096 + 16, st.d2h_bytes
 
 
 def test_sharded_walk_default_params(rng):
-    """Reference defaults (la=15, sb=4095, 24-bit tokens) through the walk
-    pipeline; small resync window to exercise the window-limited splice."""
-    old = sharded.RESYNC_WINDOW
-    sharded.RESYNC_WINDOW = 512
-    try:
-        data = make_text(rng, 60_000)
-        p = spec.Params()
-        m = mesh_lib.make_mesh(n_data=2, n_win=1)
-        s = sharded.encode_bytes_sharded(
-            data, p, mesh=m, block_size=8192, batch_blocks=2, interpret=True,
-        )
-        assert s == codec.encode_bytes(data, p, block_size=8192,
-                                       batch_blocks=2)
-    finally:
-        sharded.RESYNC_WINDOW = old
+    """Reference defaults (la=15, sb=4095, 24-bit tokens) through the
+    byte-aligned sharded path, entries carried across batches."""
+    data = make_text(rng, 60_000)
+    p = spec.Params()
+    m = mesh_lib.make_mesh(n_data=2, n_win=1)
+    s = sharded.encode_bytes_sharded(
+        data, p, mesh=m, block_size=8192, batch_blocks=2,
+    )
+    assert s == codec.encode_bytes(data, p, block_size=8192, batch_blocks=2)
 
 
 def test_distributed_partitioning():
@@ -249,7 +217,7 @@ def test_distributed_single_process_encode(rng):
 
 
 def test_sharded_xla_native_phase_pack_odd_widths(rng):
-    """Non-byte-aligned sharded fallback: device-compacted token words +
+    """Non-byte-aligned sharded widths: device-compacted token words +
     native phase-aware bit pack (4 B/token host traffic, bitio.c:203-236's
     job done a block at a time).  Odd widths force sub-byte phase carry
     across every batch boundary; streams must equal the serial host parse
